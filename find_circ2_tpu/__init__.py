@@ -1,4 +1,4 @@
-"""TPU-native circRNA detection engine (find_circ2 capabilities, rebuilt).
+"""GPU circRNA detection engine in JAX (find_circ2 capabilities, rebuilt).
 
 See SURVEY.md for the structural analysis of the reference pipeline and
 SPEC.md for the frozen algorithm this package implements.

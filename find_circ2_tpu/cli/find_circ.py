@@ -2,7 +2,7 @@
 SURVEY.md §2.1/§3.3).
 
 Differences from the reference, by design: the external bowtie2 anchor
-pass is integrated (the engine aligns anchors itself on TPU/CPU), so the
+pass is integrated (the engine aligns anchors itself on the GPU), so the
 input is either anchor FASTQ produced by `unmapped2anchors` (full reads
 recovered from the name codec) or plain read FASTQ via --reads-format.
 Flags mirror the reference where known: -G genome, -a anchor length,
@@ -74,8 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-G", "--genome", default=None,
                    help="genome FASTA(.gz)")
     p.add_argument("-x", "--index", default=None,
-                   help="prebuilt .npz index from `tpu_circ index` "
-                   "(replaces -G; bowtie2 -x analog)")
+                   help="prebuilt index from `find_circ2 index` (.npz "
+                   "file or directory; replaces -G; bowtie2 -x analog)")
     p.add_argument("-o", "--output", default="-",
                    help="junction BED output (default stdout)")
     p.add_argument("-s", "--stats", default=None, help="stats file")
@@ -106,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "contiguous-alignment prefilter")
     p.add_argument("--backend", choices=("device", "oracle"),
                    default="device",
-                   help="device = JAX/TPU path, oracle = numpy reference")
+                   help="device = JAX path on the GPU, oracle = numpy "
+                   "reference")
     p.add_argument("--filter", action="store_true",
                    help="emit only junctions passing the frozen filter "
                    "stack: CIRCULAR & UNAMBIGUOUS_BP & ANCHOR_UNIQUE, "
@@ -117,15 +118,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-edits", type=int, default=d.filter_max_edits)
     p.add_argument("--batch-size", type=int, default=d.batch_size)
     p.add_argument("--mesh", default=None, metavar="DATAxINDEX",
-                   help="run the sharded multi-chip engine over a "
-                   "DATAxINDEX device mesh (e.g. 2x4: data-parallel "
-                   "reads, k-mer-range-sharded index); output is "
-                   "byte-identical to the single-chip path "
-                   "(BASELINE configs[3])")
+                   help="run the sharded engine over a DATAxINDEX mesh "
+                   "of the host's cards (e.g. 2x2: data-parallel reads, "
+                   "k-mer-range-sharded index); output is byte-identical "
+                   "to the single-card path (BASELINE configs[3])")
     p.add_argument("--nproc", type=int, default=None,
-                   help="multi-host run: total number of processes "
-                   "(SURVEY.md §7 step 6). Each process streams every "
-                   "--nproc'th read, detects on its own local devices, "
+                   help="multi-process run on one host: total number of "
+                   "processes, one card each (rank i opens card i; more "
+                   "processes than cards is refused). Each process "
+                   "streams every --nproc'th batch, detects on its card, "
                    "and process 0 merges the junction tables; stats are "
                    "psum'd across processes (parallel.distributed"
                    ".allreduce_counts). Requires --proc-id and a real "
@@ -140,27 +141,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSONL resume journal: completed batches replay "
                    "from disk on rerun")
     p.add_argument("--platform", choices=("auto", "cpu"), default="auto",
-                   help="cpu: force the XLA CPU backend (virtual-device "
-                   "meshes via XLA_FLAGS=--xla_force_host_platform_"
-                   "device_count=N; the env var JAX_PLATFORMS alone is "
-                   "overridden by TPU plugins)")
+                   help="auto: the GPU (the device backend refuses to run "
+                   "without one); cpu: the XLA CPU backend, on purpose "
+                   "(same as JAX_PLATFORMS=cpu; virtual-device meshes via "
+                   "XLA_FLAGS=--xla_force_host_platform_device_count=N)")
     p.add_argument("--profile", action="store_true",
                    help="print per-stage timings to stderr")
     return p
 
 
 def run(args) -> int:
+    import time
+
+    import jax
+    from find_circ2_tpu.utils import device
+    t_start = time.time()
     if args.platform == "cpu":
-        import jax
         jax.config.update("jax_platforms", "cpu")
     nproc = args.nproc or 1
     if nproc > 1:
-        # Multi-host plumbing (SURVEY.md §7 step 6, BASELINE.json:11):
-        # jax.distributed first, before any backend touch. Detection is
-        # per-process on local devices (the DP axis crosses hosts; index
-        # collectives never do — SURVEY §2.4), so processes never run in
-        # lockstep; only the final stats psum and the file-based
-        # junction merge synchronize.
+        # Multi-process plumbing (SURVEY.md §7 step 6): jax.distributed
+        # first, before any backend touch. Detection is per-process on
+        # the process's own card, so processes never run in lockstep;
+        # only the final stats psum and the file-based junction merge
+        # synchronize.
         if args.proc_id is None or not 0 <= args.proc_id < nproc:
             raise SystemExit("--nproc requires --proc-id in [0, nproc)")
         if args.output == "-":
@@ -168,10 +172,25 @@ def run(args) -> int:
                              "(process 0 writes the merged table)")
         if args.mesh:
             raise SystemExit("--mesh shards within one process; combine "
-                             "processes with --nproc OR chips with "
+                             "processes with --nproc OR cards with "
                              "--mesh, not both")
+        # One card per process: JAX reserves most of a card's memory
+        # when it opens it, so a second process on the card would fail.
+        cards = None
+        if args.backend == "device" and not device.cpu_requested():
+            cards = [device.card_for_process(args.proc_id, nproc,
+                                             device.visible_card_count())]
         from find_circ2_tpu.parallel.distributed import init_distributed
-        init_distributed(args.coordinator, nproc, args.proc_id)
+        init_distributed(args.coordinator, nproc, args.proc_id,
+                         local_device_ids=cards)
+    compiles = None
+    if args.backend == "device":
+        device.require_gpu()
+        print(f"find_circ: {device.device_line()}", file=sys.stderr)
+        device.enable_compile_cache()
+        if args.profile:
+            from find_circ2_tpu.utils.profiling import CompileStats
+            compiles = CompileStats().listen()
     cfg = Config(anchor_len=args.anchor,
                  prefix_len=min(12, args.anchor - 8),
                  stranded=args.stranded, batch_size=args.batch_size)
@@ -231,10 +250,11 @@ def run(args) -> int:
         else:
             journal = RunJournal(args.journal)
     if args.profile:
-        import time
         from find_circ2_tpu.utils.profiling import StageTimes
         times = StageTimes()
         t_stream = time.time()
+        print(f"setup\t{t_stream - t_start:.3f}s\tgenome + host index "
+              f"load/build", file=sys.stderr)
     if args.backend == "device" and args.mesh:
         # Sharded end-to-end run: same streaming loop + aggregation, the
         # device step swapped for the collective (data, index) engine.
@@ -249,7 +269,7 @@ def run(args) -> int:
         from find_circ2_tpu import native
         if args.reads_format == "fastq" and native.available():
             # Sharded runs ride the same chunked native encode as the
-            # single-chip fast path (VERDICT r2 weak #7) — only the
+            # single-card fast path — only the
             # device step is swapped for the collective engine.
             from find_circ2_tpu.models.stream import run_fastq
             for fi, f in enumerate(args.input):
@@ -277,7 +297,11 @@ def run(args) -> int:
     elif args.backend == "device":
         from find_circ2_tpu import native
         from find_circ2_tpu.models.stream import run_fastq
-        dindex = DeviceIndex.build(genome, index, cfg)
+        import contextlib
+        # Neighbor table (when the index lacks one) + device upload.
+        with (times.stage("device_index") if times is not None
+              else contextlib.nullcontext()):
+            dindex = DeviceIndex.build(genome, index, cfg)
         slowpath = (genome, index)
         if args.reads_format == "fastq" and native.available():
             # Fast path: native C FASTQ scanning + batch encoding; gzip
@@ -285,7 +309,7 @@ def run(args) -> int:
             # journal per input so batch ids stay per-file). Multi-proc
             # runs ride it as well: each process owns every --nproc'th
             # batch (run_fastq shard=), so multi-host throughput is not
-            # host-parse-bound (VERDICT r3 next #6).
+            # host-parse-bound
             shard = (args.proc_id, nproc) if nproc > 1 else None
             for fi, f in enumerate(args.input):
                 jr = journal
@@ -312,8 +336,9 @@ def run(args) -> int:
         for name, seq in src:
             agg.add(call_read(genome, index, name, seq, cfg, prefilter))
     if times is not None:
-        import time
         print(times.report(wall=time.time() - t_stream), file=sys.stderr)
+        if compiles is not None:
+            print(compiles.line(), file=sys.stderr)
     if nproc > 1:
         import pickle
         from find_circ2_tpu.models.aggregate import Stats

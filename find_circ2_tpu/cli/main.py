@@ -1,4 +1,4 @@
-"""`tpu_circ` — umbrella CLI: the reference's shell-pipeline orchestration
+"""`find_circ2` — umbrella CLI: the reference's shell-pipeline orchestration
 (SURVEY.md §1 L6, §3.1) as one command plus the individual tools as
 subcommands.
 
@@ -26,14 +26,14 @@ from find_circ2_tpu.cli import (cmp_bed, find_circ, maxlength, merge_bed,
 
 
 def run_cmd(argv) -> int:
-    p = argparse.ArgumentParser(prog="tpu_circ run",
+    p = argparse.ArgumentParser(prog="find_circ2 run",
                                 description="full pipeline in one command")
     p.add_argument("reads", help="FASTQ(.gz) of RNA-seq reads")
     p.add_argument("-G", "--genome", default=None)
     p.add_argument("-x", "--index", default=None,
-                   help="prebuilt index .npz (tpu_circ index); "
-                   "alternative to -G")
-    p.add_argument("-o", "--outdir", default="tpu_circ_out")
+                   help="prebuilt index from `find_circ2 index` (.npz "
+                   "file or directory); alternative to -G")
+    p.add_argument("-o", "--outdir", default="find_circ2_out")
     p.add_argument("-n", "--name", default="sample")
     p.add_argument("-p", "--prefix", default="")
     p.add_argument("--backend", choices=("device", "oracle"),
@@ -43,6 +43,8 @@ def run_cmd(argv) -> int:
     p.add_argument("--filter", action="store_true",
                    help="also write circ_candidates.bed with the frozen "
                    "quality filters applied")
+    p.add_argument("--profile", action="store_true",
+                   help="print per-stage timings to stderr")
     args = p.parse_args(argv)
     if not args.genome and not args.index:
         p.error("one of -G/--genome or -x/--index is required")
@@ -60,13 +62,15 @@ def run_cmd(argv) -> int:
         fc_args.append("--stranded")
     if args.no_prefilter:
         fc_args.append("--no-prefilter")
+    if args.profile:
+        fc_args.append("--profile")
     rc = find_circ.main(fc_args)
     if rc:
         return rc
     if args.filter:
         cand = os.path.join(args.outdir, "circ_candidates.bed")
         rc = _filter_existing(bed, cand)
-    print(f"tpu_circ: wrote {bed} and {stats}", file=sys.stderr)
+    print(f"find_circ2: wrote {bed} and {stats}", file=sys.stderr)
     return rc
 
 
@@ -82,25 +86,35 @@ def _filter_existing(bed_path: str, out_path: str) -> int:
 
 
 def index_cmd(argv) -> int:
-    p = argparse.ArgumentParser(prog="tpu_circ index",
+    p = argparse.ArgumentParser(prog="find_circ2 index",
                                 description="build and save the genome "
                                 "seed index (bowtie2-build analog)")
     p.add_argument("genome", help="genome FASTA(.gz)")
     p.add_argument("-o", "--output", required=True,
-                   help="output .npz index path")
+                   help="output path: NAME.npz writes one compressed "
+                   "file; any other path a directory of raw .npy arrays "
+                   "that also holds the multi-hit extras and the "
+                   "exact-first neighbor table, so runs skip every "
+                   "host-side table build")
     args = p.parse_args(argv)
     from find_circ2_tpu.config import Config
-    from find_circ2_tpu.index.build import build_index, save_index
+    from find_circ2_tpu.index.build import (build_index, save_index,
+                                            save_index_dir)
     from find_circ2_tpu.io.genome import Genome
     cfg = Config()
     genome = Genome.from_fasta(args.genome, cfg)
     index = build_index(genome, cfg)
     # Precompute the device query table so runs loading this artifact
     # skip the cuckoo construction.
-    from find_circ2_tpu.index.hashtable import build_query_table
+    from find_circ2_tpu.index.hashtable import (build_neighbor_table,
+                                                build_query_table)
     index.qtable = build_query_table(index, cfg)
-    save_index(args.output, genome, index)
-    print(f"tpu_circ index: {len(genome)} bases, "
+    if args.output.endswith(".npz"):
+        save_index(args.output, genome, index)
+    else:
+        index.qtable.ntable = build_neighbor_table(index, cfg)
+        save_index_dir(args.output, genome, index)
+    print(f"find_circ2 index: {len(genome)} bases, "
           f"{index.positions.size} windows -> {args.output}",
           file=sys.stderr)
     return 0
@@ -120,7 +134,7 @@ COMMANDS = {
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help"):
-        print("usage: tpu_circ <command> [...]\ncommands: "
+        print("usage: find_circ2 <command> [...]\ncommands: "
               + ", ".join(COMMANDS), file=sys.stderr)
         return 0 if argv else 2
     cmd = argv[0]

@@ -1,4 +1,4 @@
-"""Genome seed index v2: the TPU-native replacement for bowtie2-build's
+"""Genome seed index v2: the device-engine replacement for bowtie2-build's
 FM-index (SURVEY.md §2.2, L0 in §1).
 
 Two-level exact-20-mer index (SPEC.md §1): a direct-addressed table on the
@@ -254,11 +254,50 @@ def save_index(path, genome: Genome, index: SeedIndex) -> None:
     )
 
 
+def save_index_dir(path, genome: Genome, index: SeedIndex) -> None:
+    """Persist genome + index as a directory of raw .npy arrays (the
+    layout `load_index_dir` reads), with the query table and, when
+    built, its §2b extras and exact-first neighbor table — a run that
+    loads it does no host-side table build at all. Written under a
+    temporary name and renamed, so a reader never sees a partial one."""
+    import json as _json
+    import os as _os
+    import shutil as _shutil
+    tmp = f"{_os.fspath(path)}.tmp{_os.getpid()}"
+    _os.makedirs(tmp)
+    arrays = dict(codes=genome.codes, chrom_offsets=genome.chrom_offsets,
+                  chrom_lengths=genome.chrom_lengths,
+                  positions=index.positions, suffix_vals=index.suffix_vals,
+                  offsets=index.offsets)
+    qt = index.qtable
+    if qt is not None:
+        from find_circ2_tpu.index.hashtable import TABLE_FORMAT
+        arrays["qtable"] = qt.table
+        arrays["qmeta"] = np.concatenate([
+            np.asarray(qt.meta, np.int32),
+            np.asarray([TABLE_FORMAT], np.int32)])
+        for name, arr in (("qext", qt.ext), ("qext_id", qt.ext_id),
+                          ("qnbr", qt.ntable)):
+            if arr is not None:
+                arrays[name] = arr
+    for name, arr in arrays.items():
+        np.save(_os.path.join(tmp, f"{name}.npy"), np.asarray(arr))
+    with open(_os.path.join(tmp, "meta.json"), "w") as fh:
+        _json.dump({"n_chroms": genome.n_chroms,
+                    "chrom_names": list(genome.chrom_names),
+                    "anchor_len": index.anchor_len,
+                    "prefix_len": index.prefix_len,
+                    "bsearch_iters": index.bsearch_iters}, fh)
+    if _os.path.exists(path):
+        _shutil.rmtree(path)
+    _os.replace(tmp, path)
+
+
 def load_index_dir(path) -> tuple[Genome, SeedIndex]:
     """Load the raw-.npy artifact DIRECTORY layout written by
-    scripts/big_genome.py build (whole-genome scale: codes/
+    save_index_dir or scripts/big_genome.py build (codes/
     chrom_offsets/chrom_lengths/positions/suffix_vals/offsets .npy +
-    meta.json + optional qtable/qmeta .npy).
+    meta.json + optional qtable/qmeta, qext/qext_id and qnbr .npy).
 
     Arrays are memory-mapped — a 3.3 Gbp genome plus its 8.8 GiB query
     table "loads" in milliseconds and pages on demand — so the CLI can
@@ -291,6 +330,10 @@ def load_index_dir(path) -> tuple[Genome, SeedIndex]:
                 f"changed since this table was built — rebuild with "
                 f"big_genome.py build")
         qtable = QueryTable(table=arr("qtable"), meta=qmeta[:3])
+        for field, name in (("ext", "qext"), ("ext_id", "qext_id"),
+                            ("ntable", "qnbr")):
+            if _os.path.exists(_os.path.join(path, f"{name}.npy")):
+                setattr(qtable, field, arr(name))
     index = SeedIndex(
         anchor_len=int(meta.get("anchor_len", 20)),
         prefix_len=int(meta.get("prefix_len", 12)),

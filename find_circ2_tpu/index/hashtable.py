@@ -4,10 +4,10 @@ index (SURVEY.md §2.2 L0 — the bowtie2-build artifact analog, query half).
 The two-level SeedIndex (index/build.py) is the *build* artifact: sorted
 position lists, exact host lookups, the oracle's ground truth. Querying it
 on device costs ~11 dependent gather passes per anchor variant (bucket
-bounds + binary search + position fetch) — and on TPU every random gather
-pass over a large HBM table costs the same regardless of row width
-(measured ~10 ms per 1M elements on v5e). This module collapses K1's whole
-per-variant query to TWO row gathers over HALF the variants:
+bounds + binary search + position fetch), and every random gather pass
+over a large device-memory table costs about the same whatever the row
+width. This module collapses K1's whole per-variant query to TWO row
+gathers over HALF the variants:
 
   - every *distinct* anchor-length k-mer is pre-aggregated at build time to
     the only statistics K1 ever needs: (count, first_position) — SPEC.md §2
@@ -22,9 +22,9 @@ per-variant query to TWO row gathers over HALF the variants:
     cuckoo table; a slot is int32x4 — (p12, s8|cnt_f|cnt_r, pos_f,
     pos_r), counts clamped to max_bucket+1 (the repetitive-k-mer guard
     zeroes anything above max_bucket, so the clamp is lossless).
-    Measured on v5e: a 1M-row gather pass costs ~7.6 ms up to 4-lane
-    rows and ~+0.5 ms per extra lane, so narrow slots are the whole
-    point — the 4-slot/6-lane layout cost 2.6x more;
+    Narrow slots keep each probe to one 32-byte bucket row (one DRAM
+    sector on the GPU; an earlier 4-slot/6-lane layout read 96 B).
+    H100 gather cost by row width: not measured;
   - lookup = hash twice, gather two 32-byte bucket rows, compare keys.
     Exact by key equality — never probabilistic.
 
@@ -413,7 +413,7 @@ NBR_LANES = 4      # neighbor-table lanes: S1_f, minpos1_f, S1_r, minpos1_r
 
 
 def build_neighbor_table(index: SeedIndex, cfg: Config = Config(), *,
-                         chunk: int = 1 << 23, log=None) -> np.ndarray:
+                         chunk: int = 1 << 20, log=None) -> np.ndarray:
     """Precomputed 1-mm-ball aggregates per table slot — K1 v4's
     build-time enumeration (docs/DESIGN.md "exact-first K1").
 
@@ -480,7 +480,10 @@ def build_neighbor_table(index: SeedIndex, cfg: Config = Config(), *,
     mp1f = np.full(D, LARGE_POS, np.uint32)
     mp1r = np.full(D, LARGE_POS, np.uint32)
     four = np.uint64(4)
-    for lo in range(0, D, chunk):
+
+    def ball_chunk(lo: int) -> None:
+        # Chunks write disjoint slices, and numpy's searchsorted, fancy
+        # indexing and ufuncs release the GIL, so chunks run on threads.
         hi = min(lo + chunk, D)
         c = cs[lo:hi]
         rcc = rc_kmer(c, a)
@@ -521,7 +524,13 @@ def build_neighbor_table(index: SeedIndex, cfg: Config = Config(), *,
         mp1f[lo:hi] = mf
         mp1r[lo:hi] = mr
         if log is not None and hi < D:
-            log(f"neighbor table: {hi:,}/{D:,} keys aggregated")
+            log(f"neighbor table: chunk at {lo:,}/{D:,} keys aggregated")
+
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    workers = max(1, min(os.cpu_count() or 1, 64))
+    with ThreadPoolExecutor(workers) as ex:
+        list(ex.map(ball_chunk, range(0, D, chunk)))
     inv = np.empty(D, np.int64)
     inv[order] = np.arange(D)
     T_pad = qt.table.shape[0]

@@ -3,7 +3,7 @@
 Layout (SPEC.md §1): [GAP][chrom0][GAP][chrom1]...[GAP] where GAP is
 `chrom_gap` sentinel bases (code 5). Global uint32 positions are used on
 device; this module converts to/from per-chromosome coordinates and is the
-single place coordinate arithmetic lives for oracle and TPU paths alike.
+single place coordinate arithmetic lives for oracle and device paths alike.
 
 Replaces the reference's on-disk FASTA + faidx access (SURVEY.md §2.2).
 """

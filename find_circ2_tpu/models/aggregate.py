@@ -1,6 +1,6 @@
 """Junction aggregation, category flags, and BED table construction.
 
-Host-side, shared verbatim by the CPU oracle and the TPU device path —
+Host-side, shared verbatim by the CPU oracle and the device path —
 per-read `ReadCall` records flow in, `JunctionRow`s flow out. Semantics:
 SPEC.md §5 / SURVEY.md §3.5 (single pass over a junction dict at EOF).
 """

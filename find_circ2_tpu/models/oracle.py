@@ -4,7 +4,7 @@ This is the semantics ground truth (SURVEY.md §0 consequence 3, §7 step 2):
 a plain numpy implementation of SPEC.md §2-§4 / SURVEY.md §3.3, deliberately
 written as per-candidate loops (the breakpoint search recomputes Hamming
 distance per split, O(L²) exactly as the reference does) so that the
-vectorized prefix-sum TPU path in ops/ is cross-checked against an
+vectorized prefix-sum device path in ops/ is cross-checked against an
 independent formulation. Golden test fixtures are generated from this
 module.
 """
@@ -50,7 +50,7 @@ class AnchorHit:
 
 @dataclass
 class ReadCall:
-    """Per-read outcome; the unit compared between oracle and TPU path."""
+    """Per-read outcome; the unit compared between oracle and device path."""
     name: str
     seq: str
     status: int
@@ -234,7 +234,7 @@ def _pair_junction(genome: Genome, R: np.ndarray, pA: int, pB: int,
         return None
     G = genome.codes
     # Naive per-split recomputation (SURVEY §3.3) — deliberately the
-    # independent O(L^2) formulation the TPU prefix sums are checked
+    # independent O(L^2) formulation the device prefix sums are checked
     # against.
     scores = {}
     for bp in range(a, l - a + 1):

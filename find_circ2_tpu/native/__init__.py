@@ -1,8 +1,10 @@
 """ctypes binding for the native host data loader (fc2native.c).
 
 Builds the shared library on first use with the system C compiler (no
-network, no pip); callers must handle `available() == False` and fall
-back to the pure-Python path (io/fastq.py + io/twobit.py). The reference
+network, no pip) from the tracked fc2native.c into libfc2native.so
+beside it (listed in .gitignore); callers must handle
+`available() == False` and fall back to the pure-Python path
+(io/fastq.py + io/twobit.py). The reference
 relied on samtools/htslib C code for this role (SURVEY.md §2.2).
 """
 
@@ -22,12 +24,16 @@ _tried = False
 
 
 def _build() -> bool:
+    # Build under a per-process name and rename: processes that start
+    # together (find_circ --nproc) never load a half-written library.
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     for cc in ("cc", "gcc", "clang"):
         try:
             r = subprocess.run(
-                [cc, "-O3", "-shared", "-fPIC", _SRC, "-o", _LIB_PATH],
+                [cc, "-O3", "-shared", "-fPIC", _SRC, "-o", tmp],
                 capture_output=True, timeout=120)
             if r.returncode == 0:
+                os.replace(tmp, _LIB_PATH)
                 return True
         except (OSError, subprocess.TimeoutExpired):
             continue

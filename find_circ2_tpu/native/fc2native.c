@@ -1,4 +1,4 @@
-/* Native host-side data loader for the TPU circRNA engine.
+/* Native host-side data loader for the circRNA detection engine.
  *
  * Role: the reference pipeline's native I/O layer (samtools/htslib BAM
  * and FASTQ handling, SURVEY.md §2.2) rebuilt for this engine: scanning

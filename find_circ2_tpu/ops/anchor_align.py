@@ -1,5 +1,5 @@
 """K1 v3: batched anchor alignment by neighborhood-enumerated exact
-20-mer search — the TPU-native replacement for the reference's bowtie2
+20-mer search — the device replacement for the reference's bowtie2
 anchor pass (SURVEY.md §3.4; SPEC.md §2 freezes the exact contract).
 
 Per anchor and strand, every 20-mer within Hamming distance A_MM (=1) of
@@ -10,10 +10,9 @@ position matches exactly one variant, so candidates are disjoint by
 construction, every candidate's mismatch count equals its variant's
 enumeration distance, and K1 touches no genome sequence at all: per-anchor
 statistics are pure range arithmetic over TWO bucket-row gathers per
-variant (v2 did ~11 dependent gather passes of binary search; on TPU each
-random gather pass over an HBM table costs ~10 ms per 1M elements
-regardless of row width, so this is the difference between ~25 ms and
-~130 ms per 4096-read batch). Shapes stay flat ([B, 2*V]).
+variant (v2 did ~11 dependent gather passes of binary search, and each
+random gather pass over a device-memory table costs about the same
+whatever the row width). Shapes stay flat ([B, 2*V]).
 
 Positions are uint32 global coordinates (genomes < 2^32 — whole human
 genome scale; the table's int32 lanes carry the uint32 bit pattern).
@@ -252,10 +251,11 @@ def candidate_stats(
 def _fold_min(x: jnp.ndarray) -> jnp.ndarray:
     """Log-depth min over the last axis via elementwise minimum chains.
 
-    Deliberately avoids a reduce op: XLA's TPU backend demotes gathers
-    whose outputs feed axis reductions to a scalar loop emitter (see
-    docs/DESIGN.md "XLA pitfalls"); pairwise elementwise minimum keeps
-    the vector emitter.
+    Avoids a reduce op: an XLA backend this was first tuned on demoted
+    gathers whose outputs feed axis reductions to a scalar loop emitter
+    (docs/DESIGN.md "XLA pitfalls"); pairwise elementwise minimum keeps
+    the vector emitter. Whether the GPU backend needs this is not
+    measured; results are identical either way.
     """
     n = x.shape[-1]
     while n > 1:

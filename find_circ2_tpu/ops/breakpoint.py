@@ -1,5 +1,5 @@
 """K2: batched breakpoint search — the hot inner loop of SURVEY.md §3.3,
-reformulated TPU-first.
+reformulated for a vectorizing accelerator.
 
 The reference recomputes Hamming distance per candidate split (O(L²) per
 read). Ungapped alignment makes `mmL` a prefix-sum and `mmR` a suffix-sum
@@ -34,6 +34,23 @@ from find_circ2_tpu.config import (
 _A, _C, _G, _T = 0, 1, 2, 3
 
 BIG = np.int32(1 << 20)  # np, not jnp: see ops/anchor_align.py
+
+
+def prefix_sum_rows(ind: jnp.ndarray) -> jnp.ndarray:
+    """Inclusive prefix sums along the last axis of 0/1 indicators
+    ([N, Lp] bool) as int32 — K2's mmL/mmR and the explore program's
+    per-candidate scores.
+
+    One triangular-ones matrix product: the indicators are exact in
+    bf16 and every partial sum (<= Lp < 2^24) is exact in the float32
+    accumulator (`preferred_element_type`), so the result is exact on
+    tensor cores and TF32 never enters. Any float32 product added on
+    this path must state its precision the same way."""
+    Lp = ind.shape[-1]
+    tri = (jnp.arange(Lp)[:, None] <= jnp.arange(Lp)[None, :]
+           ).astype(jnp.bfloat16)
+    return jnp.dot(ind.astype(jnp.bfloat16), tri,
+                   preferred_element_type=jnp.float32).astype(jnp.int32)
 
 
 @partial(jax.jit, static_argnames=("cfg", "nbases"))
@@ -86,15 +103,7 @@ def breakpoint_search(
     GB_r = GBw[:, 2:]
     neqA = ((R != GA_r) | (R >= 4) | (GA_r >= 4)) & in_read
     neqB = ((R != GB_r) | (R >= 4) | (GB_r >= 4)) & in_read
-    # Prefix sums as one triangular-ones matmul on the MXU: XLA lowers
-    # jnp.cumsum on [B, Lp] to a log-depth pass chain (~9.5 ms per
-    # 4096-row batch on v5e); the dot is exact — indicators are 0/1 in
-    # bf16, partial sums <= Lp < 2^24 accumulate in f32.
-    tri = (jnp.arange(Lp)[:, None] <= jnp.arange(Lp)[None, :]
-           ).astype(jnp.bfloat16)
-    both = jnp.concatenate([neqA, neqB], axis=0).astype(jnp.bfloat16)
-    pref = jnp.dot(both, tri,
-                   preferred_element_type=jnp.float32).astype(jnp.int32)
+    pref = prefix_sum_rows(jnp.concatenate([neqA, neqB], axis=0))
     prefA, prefB = pref[:B], pref[B:]                    # prefA[:,k-1]=mmL(k)
     totB = jnp.take_along_axis(
         prefB, clamp(lens[:, None] - 1, 0, Lp - 1), axis=1)
@@ -125,7 +134,7 @@ def breakpoint_search(
     # acceptor-side dinuc = genome[acceptor-2 : acceptor] = GBw[k : k+2]
     # k_ax is a broadcast arange, so indexing by it is a pure SLICE —
     # take_along_axis here would emit four [B, Lp+1] gather passes
-    # (~7 ms each per 4096-read batch on v5e; docs/DESIGN.md).
+    # (docs/DESIGN.md "XLA pitfalls").
     d0 = GA[:, :Lp + 1]
     d1 = GA[:, 1:Lp + 2]
     a0 = GBw[:, :Lp + 1]

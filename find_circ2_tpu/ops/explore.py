@@ -1,11 +1,11 @@
-"""Device-side multi-hit pair exploration (SPEC.md §2b) — the TPU form
+"""Device-side multi-hit pair exploration (SPEC.md §2b) — the device form
 of the reference's bowtie2-multi-mapper + find_circ.py pair loop
 (SURVEY.md §3.3, §7 "Dynamic→static shape conversion").
 
-Round-2 measurement: reads whose anchors tie at the best mismatch level
-(~20% of a repeat-realistic library) were re-called on a host slow path
-at ~2.6 ms/read — 97% of end-to-end wall time. This module replaces that
-path with a fully static-shaped device program, exact by construction:
+Reads whose anchors tie at the best mismatch level (~20% of a
+repeat-realistic library) used to be re-called on a host slow path that
+dominated end-to-end wall time. This module replaces that path with a
+fully static-shaped device program, exact by construction:
 
 - The frozen §2b candidate list is the FIRST `max_pair_hits` (K=8)
   best-mm hits in (strand, position) order. Per variant the table +
@@ -18,7 +18,7 @@ path with a fully static-shaped device program, exact by construction:
   §2b/§6 full-read prefilter extension (same window, same query), and
   the GT/AG dinucleotide scans.
 - The K x K pair grid evaluates all splits via the same prefix-sum
-  reformulation as ops/breakpoint.py (one triangular-ones MXU matmul per
+  reformulation as ops/breakpoint.py (prefix_sum_rows, one pass per
   anchor side), then resolves the frozen pair tie-break
   (edits, !canon+, !canon-, pA, pB; '+'-strand pairs first on full ties)
   with masked integer min passes — no data-dependent shapes anywhere.
@@ -52,6 +52,7 @@ from find_circ2_tpu.config import (
 )
 from find_circ2_tpu.ops.anchor_align import (LARGE_POS, candidate_stats,
                                              finalize_hits, read_anchors)
+from find_circ2_tpu.ops.breakpoint import prefix_sum_rows
 from find_circ2_tpu.ops.packed import gather_window
 
 _A, _C, _G, _T = 0, 1, 2, 3
@@ -123,13 +124,7 @@ def _candidate_side(gpacked, nbases, pos, strand, lens, R32, rc32,
                   rc32[:, None, :])
     Wseg = jnp.where(role_left[..., None], W[..., :Lp], W[..., 2:])
     neq = ((Q != Wseg) | (Q >= 4) | (Wseg >= 4)) & in_read[:, None, :]
-    # Prefix sums as one triangular-ones MXU matmul (ops/breakpoint.py):
-    # 0/1 indicators in bf16, partials <= Lp < 2^24 accumulate in f32.
-    tri = (jnp.arange(Lp)[:, None] <= jnp.arange(Lp)[None, :]
-           ).astype(jnp.bfloat16)
-    pref = jnp.dot(neq.reshape(B * K, Lp).astype(jnp.bfloat16), tri,
-                   preferred_element_type=jnp.float32
-                   ).astype(jnp.int32).reshape(B, K, Lp)
+    pref = prefix_sum_rows(neq.reshape(B * K, Lp)).reshape(B, K, Lp)
     prefx = jnp.pad(pref, ((0, 0), (0, 0), (1, 0)))   # prefx[..,k]=mm(:k)
     tot = pref[..., Lp - 1]                           # full-read mm (§6)
     # Splice-signal dinucleotides at split k (same slices as

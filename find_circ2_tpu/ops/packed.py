@@ -1,19 +1,17 @@
 """Nibble-packed genome representation for gather-efficient window reads.
 
-TPU gathers cost per *row*, not per byte — so the genome is packed
-8 bases per uint32 word (4-bit nibble per base, values 0-6 preserving the
-full SPEC.md §0 code alphabet incl. N/GAP/RPAD sentinels) and laid out as
-a 2-D [n_rows, WPR] array whose rows are gathered whole. A w-base window
-needs 1-2 row-gathers; the in-row selection is branchless VPU work.
+Gathers cost per *row* fetched, so the genome is packed 8 bases per
+uint32 word (4-bit nibble per base, values 0-6 preserving the full
+SPEC.md §0 code alphabet incl. N/GAP/RPAD sentinels) and laid out as a
+2-D [n_rows, WPR] array whose rows are gathered whole. A w-base window
+needs 1-2 row-gathers; the in-row selection is branchless vector work.
 
-Row width (WPR, words) is genome-size-dependent because of TPU tile
-padding: u32 arrays tile at (8, 128), so a [N, 8] array is padded 16x at
-rest (the r3 3.3 Gbp build hit a 26.4 GiB allocation for a 1.65 GiB
-genome). Genomes <= 128 Mbp keep WPR=8 (32 B rows — the fastest gather
-width, 512 MiB padded at the 64 MB bench size); larger genomes use
-WPR=64 (256 B rows, only 2x padding: 3.3 GiB at 3.3 Gbp). The reshape
-happens HOST-side in pack_nibbles — an in-jit reshape would materialize
-the padded form as a transient even when the flat input is compact.
+Row width (WPR, words) depends on genome size: genomes <= 128 Mbp use
+WPR=8 (32 B rows), larger ones WPR=64 (256 B rows). The split was chosen
+for an accelerator whose memory layout padded narrow arrays; on the GPU
+a [N, 8] uint32 array is not padded, and which width gathers faster at
+genome scale is not measured (ROADMAP: WPR=8 vs 64 on the card). The
+reshape happens HOST-side in pack_nibbles.
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@
 The engine's mesh has two axes (SURVEY.md §2.4):
   "data"  — read batches stream data-parallel,
   "index" — the seed index shards k-mer-range tensor-parallel.
-On a v5e-8 host the natural shape is (2, 4) or (1, 8); multi-host pods
-extend "data" across hosts so the index's pmin/psum collectives ride ICI
-within a slice (SURVEY.md §5 comm-backend row).
+The cards of one host are joined all to all, so the shape follows the
+algorithm alone: on four cards (2, 2), (4, 1) or (1, 4). Which is
+fastest is measured, not assumed (ROADMAP R6). Several hosts extend
+"data" across hosts, so the index's pmin/psum collectives stay within
+one host (SURVEY.md §5 comm-backend row).
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ def make_mesh(n_devices: int | None = None,
 
 def make_hier_mesh(dhost: int, data: int, index: int) -> Mesh:
     """Three-axis (dhost, data, index) mesh for the hierarchical junction
-    merge (SURVEY.md §7 step 6): "dhost" spans hosts (DCN), "data" and
-    "index" stay within a host (ICI). jax.devices() enumerates devices
+    merge (SURVEY.md §7 step 6): "dhost" spans hosts, "data" and
+    "index" stay within a host. jax.devices() enumerates devices
     host-major, so reshaping keeps each host's devices contiguous on the
     trailing axes."""
     n = dhost * data * index

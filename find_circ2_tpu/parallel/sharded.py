@@ -1,20 +1,20 @@
-"""Sharded multi-chip detection step: shard_map over the (data, index)
+"""Sharded multi-card detection step: shard_map over the (data, index)
 mesh — optionally (dhost, data, index) for multi-host runs.
 
 Reads stream data-parallel; the seed index is k-mer-range sharded
 tensor-parallel (index/shard.py); anchor-hit statistics combine across
 index shards with integer pmin/psum collectives (ops/anchor_align
-.finalize_hits), which keeps results bit-identical to the single-chip
+.finalize_hits), which keeps results bit-identical to the single-card
 path — the property tests/test_sharded.py asserts. Genome codes and the
 breakpoint stage are replicated across "index" (K2's inputs are already
-globally reduced), so only K1's tiny per-anchor statistics cross chips:
-the collective payload is O(batch) int32s, riding ICI.
+globally reduced), so only K1's tiny per-anchor statistics cross cards:
+the collective payload is O(batch) int32s.
 
 The junction merge is HIERARCHICAL when the mesh carries a "dhost" axis
 (SURVEY.md §7 step 6): per-shard tables first all_gather + re-merge over
-the intra-host "data" axis (ICI), then the already-collapsed tables cross
-hosts over "dhost" (DCN) — the cross-host payload is one deduplicated
-table per host instead of one per chip. Merging is associative and
+the intra-host "data" axis, then the already-collapsed tables cross
+hosts over "dhost" — the cross-host payload is one deduplicated
+table per host instead of one per card. Merging is associative and
 commutative on integers, so both levels are bit-identical to a flat merge.
 
 This realizes BASELINE.json:5/10/11's mandated parallelism; multi-host
@@ -129,8 +129,8 @@ def sharded_detect_merge_fn(mesh: Mesh, cfg: Config, nbases: int,
     """Like sharded_detect_fn, but additionally performs the collective
     junction dedup/merge on device (BASELINE.json:5/10): each data shard
     collapses its per-read records with a sort+segment combine, tables
-    all_gather over the intra-host "data" axis (ICI) and re-merge; with a
-    "dhost" axis the collapsed tables then cross hosts (DCN) and merge
+    all_gather over the intra-host "data" axis and re-merge; with a
+    "dhost" axis the collapsed tables then cross hosts and merge
     again — returning one replicated junction table. Multi-hit-flagged
     reads are EXCLUDED from the device table (res["multi"], SPEC §2b) —
     the host slow path re-calls and re-adds them."""

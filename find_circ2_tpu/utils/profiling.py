@@ -37,7 +37,7 @@ class StageTimes:
 
         With `wall` (end-to-end seconds measured by the caller), a
         residual line shows how much wall time the stage timers do NOT
-        cover — so untimed cost can never hide (VERDICT r3 weak #2) —
+        cover — so untimed cost can never hide —
         and reads_per_s is computed over the true wall, not the timed
         subtotal."""
         lines = []
@@ -53,6 +53,36 @@ class StageTimes:
             lines.append(
                 f"reads_per_s\t{self.n_reads / (wall or total):,.0f}")
         return "\n".join(lines)
+
+
+@dataclass
+class CompileStats:
+    """Seconds JAX spent compiling (persistent-cache loads included),
+    programs compiled, and persistent-cache hits, counted from
+    jax.monitoring events once `listen` has been called."""
+    seconds: float = 0.0
+    programs: int = 0
+    cache_hits: int = 0
+
+    def listen(self) -> "CompileStats":
+        import jax.monitoring
+
+        def on_duration(event, secs, **_):
+            if event == "/jax/core/compile/backend_compile_duration":
+                self.seconds += secs
+                self.programs += 1
+
+        def on_event(event, **_):
+            if event == "/jax/compilation_cache/cache_hits":
+                self.cache_hits += 1
+
+        jax.monitoring.register_event_duration_secs_listener(on_duration)
+        jax.monitoring.register_event_listener(on_event)
+        return self
+
+    def line(self) -> str:
+        return (f"compile\t{self.seconds:.3f}s\t{self.programs}x programs, "
+                f"{self.cache_hits} persistent-cache hits")
 
 
 @contextlib.contextmanager

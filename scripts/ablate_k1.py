@@ -1,10 +1,8 @@
-"""Ablation of the detect step: where do the ~6 us/read go?
+"""Ablation of the detect step: where does the per-read time go?
 
-The measured gather-issue floor (scripts/bench_gather_rate.py, DESIGN.md
-"Pallas K1 verdict") prices K1's 244 rows/read at ~1.7 us/read, yet the
-headline runs at ~6 us/read. This script times progressively smaller
-slices of the program on the real chip to attribute the difference
-(VERDICT r3 next #4: claim part of the 3.5x, or measure why not):
+Times progressively smaller slices of the program on the card, to set
+the detect step's time beside the gather rate measured by
+scripts/bench_gather_rate.py:
 
   full        detect_batch_phased (headline program pair)
   align       K1 phase only (enumerate + hash + gather + finalize)

@@ -1,15 +1,15 @@
 """Scaling-efficiency table over the (data, index) mesh (BASELINE
-configs[3]/[4]; VERDICT r3 next #5 — record the numbers, even as a
-CPU-mesh proxy).
+configs[3]/[4]).
 
-Runs the sharded engine across every (data x index) shape of an
-8-virtual-device CPU mesh and reports reads/s per shape and efficiency
-vs the single-device baseline x n_devices. On real v5e-8 hardware the
-same script runs unchanged (drop the CPU forcing) — mesh construction
-is the only difference (SURVEY §2.4).
+Runs the sharded engine across every (data x index) shape of a mesh
+and reports reads/s per shape and efficiency vs the single-device
+baseline x n_devices. By default the mesh is 8 virtual CPU devices,
+which checks the collective path only; with --cpu-devices 0 it runs on
+the host's cards (e.g. four H100s: (4,1), (2,2), (1,4)) — mesh
+construction is the only difference (SURVEY §2.4).
 
 Usage: python scripts/bench_scaling.py [--genome-mb 16] [--reads 16384]
-Writes SCALING_r04.json at the repo root unless --out -.
+Prints one JSON line; --out FILE also writes it there.
 """
 
 from __future__ import annotations
@@ -32,9 +32,9 @@ def main():
     ap.add_argument("--repeat-frac", type=float, default=0.45)
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--cpu-devices", type=int, default=8,
-                    help="0 = run on the real default platform (e.g. "
-                    "the one TPU chip as the (1,1) anchor point)")
-    ap.add_argument("--out", default="SCALING_r05.json")
+                    help="0 = run on the host's cards instead of "
+                    "virtual CPU devices")
+    ap.add_argument("--out", default="-")
     args = ap.parse_args()
 
     if args.cpu_devices:
@@ -115,8 +115,8 @@ def main():
         row = dict(data=d, index=i, reads_per_s=round(rps),
                    efficiency=round(eff, 3))
         if eff > 1.1:
-            # Output sanity guard (VERDICT r4 next #8): super-linear
-            # scaling means broken timing, not speedup.
+            # Output sanity guard: super-linear scaling means broken
+            # timing, not speedup.
             row["suspect"] = True
         rows.append(row)
         print(f"mesh (data={d}, index={i}): {rps:,.0f} reads/s, "
@@ -135,12 +135,11 @@ def main():
             "Data-parallel shapes track the physical-core ceiling "
             "(total work constant); index-sharded shapes replicate "
             "variant enumeration per shard, which oversubscribed CPUs "
-            "serialize but ICI-connected TPU chips run in parallel.")
+            "serialize but separate cards run in parallel.")
     js = json.dumps(out)
     print(js)
     if args.out != "-":
-        with open(os.path.join(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))), args.out), "w") as fh:
+        with open(args.out, "w") as fh:
             fh.write(js + "\n")
 
 

@@ -1,6 +1,6 @@
 """K1 experiment bench: candidate gather-shape and exact-first variants.
 
-Measures on the real chip, against the current production formulation
+Measures on the card, against the current production formulation
 (f_base = hash + two [2B, V]-shaped 32 B row gathers):
 
   base      production shape: per-probe jnp.take with [2B, V] indices

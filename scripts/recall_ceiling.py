@@ -1,5 +1,4 @@
-"""Recall-ceiling study on the configs[2] filter-stack library
-(VERDICT r4 next #3: the DESIGN.md ceiling study BASELINE.md cites).
+"""Recall-ceiling study on the configs[2] filter-stack library.
 
 Runs the production pipeline on the exact bench.py --filter-stack
 library (seed=7, fs_scale=4), then classifies EVERY missed truth

@@ -1,6 +1,5 @@
 """Trace missed truth junctions of the configs[2] filter-stack bench to
-their mechanistic cause (VERDICT r3 next #3: "explain
-reads_relocated_junction mechanistically — pick 5 reads, trace them").
+their mechanistic cause.
 
 Runs the same RNase-R library as bench.py --filter-stack, attributes
 EVERY miss (no sampling), then for a handful of 'relocated' junctions

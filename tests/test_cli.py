@@ -259,3 +259,25 @@ def test_multiple_input_files(tmp_path):
     assert cli_main.main(base[:1] + [str(r1), str(r2)] + base[1:]
                          + ["-o", str(paired)]) == 0
     assert single.read_text() == paired.read_text()
+
+
+def test_index_dir_matches_genome_build(tmp_path):
+    """`find_circ2 index -o DIR` stores the query table, §2b extras and
+    neighbor table; a device run on `-x DIR` is byte-identical to one
+    that builds everything from `-G`."""
+    import os
+    sim = simulate(seed=73, n_circ=4, n_linear=2, reads_per_junction=3,
+                   n_contiguous=6, n_random=4, err_rate=0.3)
+    fa, fq = _write_inputs(tmp_path, sim)
+    idx_dir = tmp_path / "g.idx"
+    assert cli_main.main(["index", str(fa), "-o", str(idx_dir)]) == 0
+    for name in ("qtable", "qext", "qext_id", "qnbr"):
+        assert os.path.exists(idx_dir / f"{name}.npy"), name
+    for tag, src in (("built", ["-G", str(fa)]),
+                     ("loaded", ["-x", str(idx_dir)])):
+        assert cli_main.main(["run", str(fq), *src, "-o",
+                              str(tmp_path / tag), "--filter"]) == 0
+    for name in ("splice_sites.bed", "circ_candidates.bed", "stats.txt"):
+        assert (tmp_path / "built" / name).read_bytes() == \
+            (tmp_path / "loaded" / name).read_bytes()
+    assert "circ_" in (tmp_path / "built" / "splice_sites.bed").read_text()

@@ -4,7 +4,7 @@ equal best hits, where the decoy hit has the smaller genomic position.
 v2 single-best-hit semantics (device without slowpath) relocate the
 junction to the decoy; the v3 pair exploration recovers the true
 coordinates because the true pair has fewer breakpoint edits. Oracle and
-device+slowpath must agree exactly (VERDICT r1 item 4)."""
+device+slowpath must agree exactly."""
 
 import numpy as np
 

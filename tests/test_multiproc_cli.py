@@ -1,5 +1,5 @@
-"""Multi-host CLI plumbing (SURVEY.md §7 step 6, VERDICT r2 missing #6,
-r3 next #6/#8): REAL 2-OS-process `find_circ --nproc` runs —
+"""Multi-process CLI plumbing (SURVEY.md §7 step 6): REAL 2-OS-process
+`find_circ --nproc` runs —
 jax.distributed init, batch-granular sharding on the NATIVE fast path,
 per-process local detection, file-based junction merge on process 0,
 psum'd stats — must produce byte-identical BED + stats to a
@@ -125,7 +125,7 @@ def test_nproc2_cli_byte_identical(tmp_path):
 def test_nproc2_native_large_library(tmp_path):
     """~10k reads through the native fast path (batch-granular shard):
     multi-proc output must stay byte-identical at a realistic batch
-    count (VERDICT r3 next #8 'beyond the toy')."""
+    count."""
     from find_circ2_tpu import native
     if not native.available():
         pytest.skip("native loader unavailable")
@@ -190,7 +190,7 @@ def test_nproc2_journal_resume(tmp_path):
 
 def test_journal_sharding_mismatch_rejected(tmp_path):
     """A journal written under one (nproc, proc_id) must refuse replay
-    under another (ADVICE r3: silent cross-rank replay corruption)."""
+    under another."""
     from find_circ2_tpu.utils.journal import RunJournal
 
     j = RunJournal(tmp_path / "j", meta={"nproc": 2, "proc_id": 0})
